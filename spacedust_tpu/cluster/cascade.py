@@ -18,7 +18,7 @@ data/workflow/cascaded_clustering.sh):
   3. `mergeclusters` composes the per-round assignments back onto the
      original key space (util/mergeclusters.cpp; cascaded_clustering.sh:84).
 
-The TPU mapping: verification alignments ride the batched SW kernel via
+On the accelerator: verification alignments ride the batched SW kernel via
 AlignmentEngine; k-mer selection/hashing is vectorized numpy on host
 (bandwidth-trivial next to the alignment work).
 """

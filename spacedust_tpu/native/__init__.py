@@ -22,24 +22,51 @@ _SOURCES = ["banded_sw.cpp", "tantan.cpp", "simd_helpers.cpp",
             "nucl_align.cpp"]
 
 
+def _cpu_features() -> bytes:
+    """The host CPU's feature flags: a -march=native build is valid only
+    on a CPU that has every one of them."""
+    with open("/proc/cpuinfo", "rb") as f:
+        return next((ln for ln in f
+                     if ln.startswith((b"flags", b"Features"))), b"")
+
+
+def _flags(sanitize: bool) -> list[str]:
+    if sanitize:
+        return ["-O1", "-g", "-fsanitize=address,undefined",
+                "-fno-omit-frame-pointer"]
+    return ["-O3", "-march=native"]
+
+
+def library_path(sanitize: bool = False) -> Path:
+    """The library's file name hashes the sources, the flags and the host
+    CPU's features, so a copy built on another machine is never
+    loaded."""
+    h = hashlib.sha1()
+    for s in _SOURCES:
+        h.update((_DIR / s).read_bytes())
+    h.update(" ".join(_flags(sanitize)).encode())
+    h.update(_cpu_features())
+    return _DIR / f"_native_{h.hexdigest()[:12]}{'_asan' if sanitize else ''}.so"
+
+
 def _build() -> Path:
     import os
-    srcs = [_DIR / s for s in _SOURCES]
-    tag = hashlib.sha1(b"".join(s.read_bytes() for s in srcs)).hexdigest()[:12]
     # SPACEDUST_NATIVE_SANITIZE=1 builds the engines under ASan+UBSan —
     # the CI-style memory/race check (the reference runs its regression
     # under an ASanOpt build, azure-pipelines.yml:36-39); run the suite
     # via tools/run_asan.sh so libasan is preloaded into python
     san = os.environ.get("SPACEDUST_NATIVE_SANITIZE") == "1"
-    out = _DIR / f"_native_{tag}{'_asan' if san else ''}.so"
+    out = library_path(san)
     if not out.exists():
-        flags = (["-O1", "-g", "-fsanitize=address,undefined",
-                  "-fno-omit-frame-pointer"] if san
-                 else ["-O3", "-march=native"])
-        subprocess.run(
-            ["g++", *flags, "-fopenmp", "-shared", "-fPIC",
-             *[str(s) for s in srcs], "-o", str(out)],
-            check=True, capture_output=True)
+        from ..utils.cache import unique_tmp
+        tmp = unique_tmp(out)
+        r = subprocess.run(
+            ["g++", *_flags(san), "-fopenmp", "-shared", "-fPIC",
+             *[str(_DIR / s) for s in _SOURCES], "-o", str(tmp)],
+            capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"native build failed:\n{r.stderr}")
+        os.replace(tmp, out)
     return out
 
 

@@ -1,6 +1,6 @@
 // Banded affine-gap DP with traceback for CIGAR emission.
 //
-// Host-side companion to the TPU score kernels: the device finds
+// Host-side companion to the device score kernels: the device finds
 // (score, start, end) for every surviving pair; this routine re-runs the
 // DP inside the [start,end] rectangle with a band of width
 // |dbLen-qLen|+1 (doubling until the known score is reached) and walks
@@ -241,12 +241,18 @@ int banded_align_batch(const uint8_t* qdata, const int64_t* qoffs,
         if (out_cigar != NULL) {
             // run-length encode in place (the Python-side per-record
             // compress_cigar loop was ~6 s of host time at scale)
+            // each run is formatted into a local buffer and copied
+            // without its NUL: a CIGAR that exactly fills its slot must
+            // not write into the next record's
             char* cg = out_cigar + 2 * out_offs[i];
             int ci = 0, c = 0;
             while (c < len) {
                 int r = c + 1;
                 while (r < len && out[r] == out[c]) ++r;
-                ci += snprintf(cg + ci, 16, "%d%c", r - c, out[c]);
+                char run[16];
+                const int w = snprintf(run, sizeof run, "%d%c", r - c, out[c]);
+                memcpy(cg + ci, run, w);
+                ci += w;
                 c = r;
             }
             out_clen[i] = ci;

@@ -6,21 +6,16 @@
 //  CacheFriendlyOperations.cpp:193-208, UngappedAlignment.cpp:331-362).
 //
 // Why native and not a device kernel: the k-mer stage is a random-access
-// join against a 64M-entry posting-offset table (measured ~670M lookups
-// for the bundled regression).  Measured TPU gather throughput through
-// XLA on this hardware is ~50M random gathers/s, so the lookup stage is
-// latency-bound, not FLOP-bound — the wrong shape for the MXU/VPU.  The
-// TPU owns the DP scoring stages (batched Smith-Waterman in ops/); this
-// engine owns the pointer-chasing, mirroring the reference's split
-// (SIMD prefilter on CPU cores feeding the alignment stage).
+// join against a 64M-entry posting-offset table (~670M lookups for a
+// two-genome search), latency-bound pointer chasing.  The device owns
+// the DP scoring stages (batched Smith-Waterman in ops/); this engine
+// owns the pointer-chasing, mirroring the reference's split (SIMD
+// prefilter on CPU cores feeding the alignment stage).  A GPU ungapped
+// prefilter (MMseqs2's GPU mode) is an open item.
 //
-// Why the ungapped Kadane rescore also stays host-side (it LOOKS like
-// VPU work): measured with SPACEDUST_PREF_PROFILE on the 12-genome
-// scale workload, generation+posting lookups are ~74% of the engine's
-// CPU time and detection+rescore+emit together only ~26% (of which the
-// Kadane loop is a fraction) — batching surviving (target, diagonal)
-// segments to a device kernel would add an H2D/D2H round trip to save
-// at most a few percent of end-to-end wall.
+// The ungapped Kadane rescore stays with it: SPACEDUST_PREF_PROFILE
+// splits the engine's CPU time between generation+posting lookups and
+// detection+rescore+emit, and the lookups dominate.
 //
 // Layout contract (see native/__init__.py::prefilter_match_batch):
 //   seed tables   : sc3/id3 are the (8000, 8000) int16 sorted 3-mer

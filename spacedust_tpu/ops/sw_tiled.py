@@ -1,14 +1,16 @@
-"""Tiled Smith-Waterman forward kernel: MXU score grid + column scan.
+"""Tiled Smith-Waterman column scan: the plain XLA reference.
 
-Performance-oriented reformulation of ops/sw.py's `_sw_scan` (same math,
-same outputs). The per-column substitution scores are produced for a whole
-target tile at once as an int8 matmul on the MXU —
+Same math and outputs as ops/sw.py's `_sw_scan`.  The per-column
+substitution scores are produced for a whole target tile at once as an
+exact int8 one-hot dot —
 
     S[b, i, j] = sum_a prof[b, a, i] * onehot(t[b, j] == a)
 
 — so the inner scan does a cheap dynamic-slice per column instead of a
-batched gather. The in-column F recurrence stays closed-form via a
-log-depth shift-max (associative max-plus scan).
+batched gather.  The in-column F recurrence stays closed-form via a
+log-depth shift-max (associative max-plus scan).  This is the CPU
+backend's device path and the reference every GPU kernel is compared
+with (ops/cuda/sw_scan.cu must match it bit for bit).
 
 Exactness: profiles are small ints (|v| <= 127), one-hot is 0/1, so the
 int8 x int8 -> int32 dot is exact; DP runs in int32.
@@ -56,8 +58,8 @@ def sw_scan_core(prof, tseq, qlens, tlens, gap_open, gap_extend, terminate,
 
     prof2/tseq2: optional second channel summed into the score grid —
     S = prof[.., tseq] + prof2[.., tseq2]. Used by the structure mode
-    where the combined 3Di x AA score decomposes into two 21-wide MXU
-    dots (vastly cheaper than a 441-wide one-hot)."""
+    where the combined 3Di x AA score decomposes into two 21-wide
+    channels (vastly cheaper than a 441-wide one-hot)."""
     B, A, Lq = prof.shape
     Lt = tseq.shape[1]
     assert Lt % t_tile == 0
@@ -83,7 +85,7 @@ def sw_scan_core(prof, tseq, qlens, tlens, gap_open, gap_extend, terminate,
 
     def tile_step(state, tile_idx):
         H, E, gmax, gj, gi, found, fj, fi = state
-        # S[b, i, j] over the tile — MXU int8 dot(s)
+        # S[b, i, j] over the tile — exact int8 dot(s)
         S = _score_tile(prof_i8, tseq, tile_idx)
         if prof2_i8 is not None:
             S = S + _score_tile(prof2_i8, tseq2, tile_idx)

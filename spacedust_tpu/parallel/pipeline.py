@@ -11,9 +11,9 @@ target-split mode (Prefiltering.cpp:575-722, Alignment.cpp:219-242):
      the reference's split merge + re-threshold
      (Prefiltering::mergeTargetSplits, Prefiltering.cpp:379-560);
   3. Smith-Waterman runs on the mesh: device d holds shard d's tokens
-     resident in HBM and scores only pairs whose target lives in its
-     shard (parallel/sw_sharded.py); per-shard results merge on host
-     (or via ICI all-gather, ShardedAlignDB.gather_scores);
+     resident in its memory and scores only pairs whose target lives in
+     its shard (parallel/sw_sharded.py); per-shard results merge on host
+     (or via an all-gather, ShardedAlignDB.gather_scores);
   4. the aggregation tail (besthit -> combinehits -> clusterhits ->
      summarize) is unchanged — it consumes the merged records.
 
@@ -52,14 +52,14 @@ def sharded_prefilter(query_db: SetDB, target_db: SetDB,
     The reference's target-split mode regenerates the per-query
     similar-k-mer beam for every split (Prefiltering.cpp:662-723) —
     the beam dominates on small shards, capping scaling.  Here the
-    split is restructured TPU-style: broadcast the tiny global state,
-    shard only the heavy state.
+    split is restructured: broadcast the tiny global state, shard only
+    the heavy state.
 
       1. each shard builds its local index (parallel; the postings are
          the memory-heavy part and scale 1/n per device);
       2. the 8 MB k-mer occupancy bitmaps are OR-ed into a GLOBAL
-         occupancy mask (on hardware: an all-reduce-OR over ICI/DCN —
-         8 MB, trivially replicable);
+         occupancy mask (across hosts: an all-reduce-OR — 8 MB,
+         trivially replicable);
       3. the beam is generated ONCE per query, pre-screened against the
          global mask (~97% of generated k-mers hit nothing anywhere and
          are dropped before any shard sees them);
@@ -449,7 +449,7 @@ class ShardedAlignmentEngine(AlignmentEngine):
             for i, ((qs, ts), r) in zip(dev_idx,
                                         zip(((s[3], s[4]) for s in sub),
                                             res)):
-                _score, fj, fi, found = r
+                found, fj, fi = r[3:]
                 if not found:
                     raise RuntimeError("forward/backward SW scores differ")
                 out[i] = (qs - fi, ts - fj)

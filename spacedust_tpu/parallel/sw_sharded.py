@@ -1,18 +1,19 @@
 """Target-sharded batched Smith-Waterman over a device mesh.
 
-The multi-chip analog of ops/sw_engine.py: each device along the
+The multi-device analog of ops/sw_engine.py: each device along the
 `targets` mesh axis holds ONE target shard's token array resident in its
-HBM (the reference's target-split mode keeps one split's index per MPI
-rank, Prefiltering.cpp:575-722); query tokens + bias are replicated.
+memory (the reference's target-split mode keeps one split's index per
+MPI rank, Prefiltering.cpp:575-722); query tokens + bias are replicated.
 Every SW batch is a (D, B) grid — device d scores B pairs whose targets
-live in shard d, gathering target panels from its local shard only.
-Results come back sharded; `gather_scores` demonstrates the ICI
-all-gather that replaces the reference's shared-filesystem split merge
+live in shard d, reading target tokens from its local shard only.
+Results come back sharded; `gather_scores` is the all-gather that
+replaces the reference's shared-filesystem split merge
 (DBWriter::mergeResults).
 
-The per-device kernel body is ops/sw_tiled.sw_scan_core — the same math
-as the single-chip engine bit-for-bit, so sharded and unsharded searches
-produce identical records.
+The per-device body is ops/sw_engine.bucket_sw with the same kernel
+choice as the single-device engine (the CUDA scan on GPUs, the XLA
+reference scan on the CPU), so sharded and unsharded searches produce
+identical records.
 """
 
 from __future__ import annotations
@@ -25,62 +26,41 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
-from ..ops.sw_tiled import sw_scan_core
+from ..ops.sw_engine import bucket_sw, select_kernel
 from ..utils.jaxconf import configure_jax
 
 configure_jax()
 
 
 def make_mesh(devices=None, axis: str = "targets") -> Mesh:
+    """A flat 1-D mesh: every device reaches every other at the same
+    rate, so the target shards need no topology-aware layout."""
     devices = devices if devices is not None else jax.devices()
     return Mesh(np.array(devices), (axis,))
 
 
 @functools.lru_cache(maxsize=64)
 def _sharded_bucket_fn(mesh: Mesh, Lq: int, Lt: int, gap_open: int,
-                       gap_extend: int, reverse: bool):
+                       gap_extend: int, reverse: bool, kernel: str):
     """Compiled (D, B)-grid SW for one (Lq, Lt) length bucket."""
     axis = mesh.axis_names[0]
 
     def local(qdata, qbias, tshard, sub, qoff, qlen, toff, tlen, term):
         # qdata/qbias: (Q,) replicated; tshard: (1, S) this device's shard;
         # qoff..term: (1, B) this device's batch (shard-local toff)
-        tdata = tshard[0]
-        qoff_, qlen_ = qoff[0], qlen[0]
-        toff_, tlen_ = toff[0], tlen[0]
-        iq = np.arange(Lq, dtype=np.int32)
-        it = np.arange(Lt, dtype=np.int32)
-        if reverse:
-            q_idx = qoff_[:, None] + jnp.maximum(
-                qlen_[:, None] - 1 - iq[None, :], 0)
-            t_idx = toff_[:, None] + jnp.maximum(
-                tlen_[:, None] - 1 - it[None, :], 0)
-        else:
-            q_idx = qoff_[:, None] + jnp.minimum(iq[None, :], qlen_[:, None] - 1)
-            t_idx = toff_[:, None] + jnp.minimum(it[None, :], tlen_[:, None] - 1)
-        qt = qdata[q_idx].astype(jnp.int32)
-        qb = qbias[q_idx].astype(jnp.int32)
-        tt = tdata[t_idx].astype(jnp.int32)
-        A = sub.shape[0]
-        onehot = (qt[:, :, None] ==
-                  np.arange(A, dtype=np.int32)[None, None, :]).astype(jnp.int8)
-        prof = jax.lax.dot_general(
-            onehot, sub.astype(jnp.int8),
-            dimension_numbers=(((2,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32)
-        prof = jnp.transpose(prof + qb[:, :, None], (0, 2, 1))
-        out = sw_scan_core(prof, tt, qlen_, tlen_, gap_open, gap_extend,
-                           term[0], t_tile=min(128, Lt),
-                           with_terminate=reverse)
-        return tuple(x[None] for x in out)
+        params = jnp.stack([qoff[0], qlen[0], toff[0], tlen[0], term[0],
+                            jnp.zeros_like(qoff[0])])
+        out = bucket_sw(qdata, qbias, tshard[0], sub, params, Lq=Lq, Lt=Lt,
+                        gap_open=gap_open, gap_extend=gap_extend,
+                        reverse=reverse, kernel=kernel)
+        return tuple(x.astype(jnp.int32)[None] for x in out)
 
-    n_out = 4 if reverse else 3
     fn = shard_map(
         local, mesh=mesh,
         in_specs=(P(), P(), P(axis, None), P(),
                   P(axis, None), P(axis, None), P(axis, None), P(axis, None),
                   P(axis, None)),
-        out_specs=tuple(P(axis, None) for _ in range(n_out)),
+        out_specs=tuple(P(axis, None) for _ in range(6)),
         check_vma=False)
     return jax.jit(fn)
 
@@ -110,21 +90,23 @@ class ShardedAlignDB:
         self.tshards = jax.device_put(shards, shd)
         self.sub = jax.device_put(sub.astype(np.int32), rep)
         self._shd = shd
+        self.kernel = select_kernel()
 
     def run_grid(self, bucket: tuple[int, int], qoff, qlen, toff, tlen, term,
                  gap_open: int, gap_extend: int, reverse: bool):
         """qoff..term: (D, B) int32 with shard-local toff; returns the
-        per-device result tuple as numpy (D, B) arrays."""
+        per-device (score, gj, gi, found, fj, fi) as numpy (D, B)
+        arrays."""
         lq, lt = bucket
         fn = _sharded_bucket_fn(self.mesh, lq, lt, gap_open, gap_extend,
-                                reverse)
+                                reverse, self.kernel)
         args = [jax.device_put(np.asarray(a, dtype=np.int32), self._shd)
                 for a in (qoff, qlen, toff, tlen, term)]
         out = fn(self.qdata, self.qbias, self.tshards, self.sub, *args)
         return tuple(np.asarray(x) for x in out)
 
     def gather_scores(self, scores):
-        """ICI all-gather of per-shard score blocks (the collective that
+        """All-gather of per-shard score blocks (the collective that
         replaces the reference's file merge); returns (D*B,) on host."""
         axis = self.mesh.axis_names[0]
 

@@ -636,10 +636,9 @@ class AlignmentEngine:
     # ------------------------------------------------------------------
     def warm_async(self) -> None:
         """Build the device DB and precompile the SW bucket executables on
-        a background thread.  Call at pipeline start: each executable
-        costs seconds to compile/load on the target hardware, and the
-        prefilter (native OpenMP, GIL-free) runs concurrently, so by
-        align time the executables are hot (VERDICT r2 weak #1)."""
+        a background thread.  Call at pipeline start: the prefilter
+        (native OpenMP, GIL-free) runs concurrently, so by align time the
+        executables are compiled."""
         import threading
 
         def _go():
@@ -647,19 +646,19 @@ class AlignmentEngine:
                 dev = self._device_db()
                 if dev is not None:
                     from ..ops.sw_engine import device_max_len
-                    # a pair's rung is bucket_len(max(ql, tl)) == the
-                    # longer sequence's own bucket, so the EXACT set of
-                    # rungs this DB pair can need is the set of buckets
-                    # its lengths fall into — warming only those (small
-                    # first; they serve most batches) cut the one-shot
-                    # cold start (VERDICT r4 weak #3)
+                    # a forward pair's rung is bucket_len(max(ql, tl)) ==
+                    # the longer sequence's own bucket, so the forward
+                    # rungs are exactly the buckets the lengths fall
+                    # into; warm() adds the smaller rungs that reverse
+                    # prefixes can need
                     lens = np.concatenate([self.qdb.lengths,
                                            self.tdb.lengths])
                     lens = lens[lens <= device_max_len()]
                     ladder = np.asarray(self.ladder)
                     need = np.unique(np.searchsorted(ladder, lens))
                     rungs = [int(ladder[i]) for i in need]
-                    dev.warm(rungs, self.par.gap_open, self.par.gap_extend)
+                    dev.warm(rungs, self.par.gap_open, self.par.gap_extend,
+                             ladder=self.ladder)
             except Exception:     # warm failures surface on the real call
                 pass
 
@@ -706,10 +705,9 @@ class AlignmentEngine:
                                       qdb.offsets, dtype=np.int64),
                                   t_offsets=np.ascontiguousarray(
                                       tdb.offsets, dtype=np.int64))
-        # per-sequence offsets in the device's DMA-aligned layout
-        # (DMA_ALIGN units) — what forward/reverse jobs carry
-        self._qoffs32 = self._dev.q_blk
-        self._toffs32 = self._dev.t_blk
+        # per-sequence token offsets — what forward/reverse jobs carry
+        self._qoffs32 = self._dev.q_offs
+        self._toffs32 = self._dev.t_offs
         return self._dev
 
     def _forward_jobs(self, pairs: list[tuple[int, int]], base: int,
@@ -1050,15 +1048,14 @@ class AlignmentEngine:
 class _AlignStream:
     """Incremental alignment driver: candidate fragments stream in (from
     the chunked prefilter) and their forward SW pairs are ENQUEUED into
-    the device engine's per-rung buffers; every full super-batch
-    (super_k x batch_width pairs, one device execution) dispatches
-    asynchronously, overlapping device scoring with the host prefilter
-    of later fragments.  finish() flushes the tails, collects all
-    forward results in one transfer, filters survivors, and runs the
-    reverse pass + traceback.  Buffering across fragments keeps device
-    executions full-width — round 4 dispatched each fragment's partial
-    batches immediately and spent 137 s of the scale run's align stage
-    on ~4800 per-batch link round trips."""
+    the device engine's per-rung buffers; every full batch (batch_width
+    pairs, one device execution) dispatches asynchronously, overlapping
+    device scoring with the host prefilter of later fragments.  finish()
+    flushes the tails, collects all forward results in one transfer,
+    filters survivors, and runs the reverse pass + traceback.  Buffering
+    across fragments keeps device executions full-width: each execution
+    has a fixed cost beyond its kernel, so per-fragment partial batches
+    would multiply it."""
 
     def __init__(self, eng: AlignmentEngine):
         self.eng = eng

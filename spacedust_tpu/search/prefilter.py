@@ -26,8 +26,10 @@ loops move to device kernels in ops/ as the data scales):
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from functools import lru_cache
+from pathlib import Path
 
 import numpy as np
 
@@ -155,7 +157,7 @@ class SeedTables:
 def _build_part_tables(matrix_name: str, part: int) -> SeedTables:
     """Sorted part-k-mer product tables for part in {2, 3}
     (ExtendedSubstitutionMatrix two/three)."""
-    from ..utils.cache import artifact_path
+    from ..utils.cache import artifact_path, unique_tmp
     sc_path = artifact_path(f"seed{part}_{matrix_name}_scores.npy")
     id_path = artifact_path(f"seed{part}_{matrix_name}_idx.npy")
     if sc_path.exists() and id_path.exists():
@@ -192,12 +194,11 @@ def _build_part_tables(matrix_name: str, part: int) -> SeedTables:
         order = np.argsort(key, axis=1, kind="quicksort").astype(np.int16)
         sorted_scores = np.take_along_axis(
             scores.astype(np.int16), order.astype(np.int64), axis=1)
-        tmp_sc = sc_path.with_suffix(".tmp.npy")
-        tmp_id = id_path.with_suffix(".tmp.npy")
+        tmp_sc, tmp_id = unique_tmp(sc_path), unique_tmp(id_path)
         np.save(tmp_sc, sorted_scores)
         np.save(tmp_id, order)
-        tmp_sc.rename(sc_path)
-        tmp_id.rename(id_path)
+        os.replace(tmp_sc, sc_path)
+        os.replace(tmp_id, id_path)
         sorted_scores = np.load(sc_path, mmap_mode="r")
         order = np.load(id_path, mmap_mode="r")
     return SeedTables(scores=sorted_scores, idx=order)
@@ -363,13 +364,16 @@ class KmerIndex:
     FORMAT_VERSION = 2
 
     def save(self, path: str | Path) -> None:
-        path = str(path)
-        np.savez(path, version=self.FORMAT_VERSION, kmer_thr=self.kmer_thr,
+        from ..utils.cache import unique_tmp
+        path = Path(path)
+        tmp = unique_tmp(path)
+        np.savez(tmp, version=self.FORMAT_VERSION, kmer_thr=self.kmer_thr,
                  kmer_size=self.kmer_size,
                  n_seqs=self.tdb.size, total_res=self.tdb.total_residues,
                  kmers=self.kmers.astype(np.int32),
                  seq_ids=self.seq_ids, positions=self.positions,
                  t_data=self.t_data, t_offsets=self.t_offsets)
+        os.replace(tmp, path)
 
     @classmethod
     def load(cls, path: str | Path, target_db: SetDB, kmer_thr: int,

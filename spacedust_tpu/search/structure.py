@@ -12,7 +12,7 @@ et al. 2024), with gap costs 10/1 (Foldseek defaults).
 
 Combined symbols are encoded as ss*21 + aa (441-wide alphabet); the
 batched SW kernel gathers per-position profile columns by the combined
-symbol, so the MXU path is unchanged. E-values use the ungapped
+symbol, so the scan itself is unchanged. E-values use the ungapped
 Karlin-Altschul (lambda, K) of the combined matrix under the product
 background — the reference's foldseek uses a neural-net E-value model
 that is not vendored, so this is a documented approximation.
@@ -129,7 +129,7 @@ class StructureAlignmentEngine(AlignmentEngine):
         super().__init__(query_db, target_db, params, same_qt_db=same_qt_db)
         self.alpha = COMBINED_ALPHA
         # coarse rung ladder: each structure bucket is a fresh XLA-scan
-        # compile (no Pallas variant), so fewer executables beat the
+        # compile (no CUDA variant yet), so fewer executables beat the
         # padding they cost on this mode's small workloads
         self.ladder = (256, 512, 1024, 2048, 4096, 32768)
         self.m3di, self.aa_scaled, gumbel = combined_matrices()

@@ -2,7 +2,7 @@
 
 The reference rebuilds its ExtendedSubstitutionMatrix tables on every
 process start (cheap in C++); here the sorted 3-mer product tables are a
-64M-row sort, so we persist them — the TPU-native analog of the
+64M-row sort, so we persist them — the analog of the
 reference's persisted prefilter index (PrefilteringIndexReader.cpp).
 
 Cache root: $SPACEDUST_CACHE_DIR, else ~/.cache/spacedust_tpu.
@@ -29,3 +29,12 @@ def cache_dir() -> Path:
 
 def artifact_path(name: str) -> Path:
     return cache_dir() / f"v{CACHE_VERSION}_{name}"
+
+
+def unique_tmp(path: Path) -> Path:
+    """A private sibling of `path` (same suffix) for write-then-rename:
+    processes and threads that build the same artifact at once each
+    write their own file, and os.replace makes the last one win whole."""
+    import threading
+    return path.with_name(
+        f".{os.getpid()}_{threading.get_ident()}_{path.name}")

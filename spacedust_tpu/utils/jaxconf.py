@@ -1,18 +1,28 @@
 """Process-wide JAX configuration for spacedust_tpu.
 
-- Persistent compilation cache: the engine compiles one kernel per
-  (length-bucket, direction) shape; caching them on disk makes repeat
-  runs start hot (the reference has no compile step to amortize, so this
-  is required to compete on end-to-end wall-clock).
-- Platform override: SPACEDUST_JAX_PLATFORM forces a backend (tests use
-  cpu with a virtual 8-device mesh).
+Persistent compilation cache: the engine compiles one executable per
+(length bucket, direction); caching them on disk lets a repeat run skip
+the compiles.  The cache is JAX_COMPILATION_CACHE_DIR where that is set,
+and no other directory; otherwise a fixed path inside the checkout,
+`<repo>/.jax_cache` (listed in .gitignore): the path is part of the
+cache's key, so it must not move between runs.
+
+The backend is chosen by JAX_PLATFORMS alone.
 """
 
 from __future__ import annotations
 
 import os
+from pathlib import Path
 
 _DONE = False
+
+CACHE_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
+
+
+def cache_dir() -> str:
+    """The compilation cache directory this process uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(CACHE_DIR)
 
 
 def configure_jax() -> None:
@@ -22,14 +32,8 @@ def configure_jax() -> None:
     _DONE = True
     import jax
 
-    if os.environ.get("SPACEDUST_JAX_PLATFORM"):
-        jax.config.update("jax_platforms", os.environ["SPACEDUST_JAX_PLATFORM"])
-    if not os.environ.get("SPACEDUST_NO_COMPILE_CACHE"):
-        cache = os.environ.get(
-            "SPACEDUST_COMPILE_CACHE",
-            os.path.join(os.path.expanduser("~"), ".cache", "spacedust_tpu",
-                         "jax_cache"))
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    path = cache_dir()
+    os.makedirs(path, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)

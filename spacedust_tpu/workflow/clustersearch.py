@@ -289,9 +289,8 @@ def cluster_search(query_db: SetDB, target_db: SetDB,
         timings["align"] = time.time() - t0
     else:
         # the alignment engine is built FIRST so its device executables
-        # compile/load on a background thread while the host-side index
-        # build + native prefilter run (each executable costs seconds on
-        # the target hardware; overlapping hides nearly all of it)
+        # compile on a background thread while the host-side index build
+        # + native prefilter run (overlapping hides most of the compile)
         aln_par = AlignmentParams(gap_open=par.gap_open,
                                   gap_extend=par.gap_extend,
                                   eval_thr=par.eval_thr, cov_thr=par.cov_thr,

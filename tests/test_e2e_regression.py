@@ -6,10 +6,9 @@ the full 5,898-gene pipeline in ~20 min (the align stage is
 device-shaped), which blows the suite budget — so the DEFAULT live gate
 here is the 250-gene slice test below (same code path end to end,
 oracle TSV from the reference binary), while the FULL-scale pipeline
-runs live on the real chip via bench.py every driver round, asserting
-the 308/108 counts before reporting any number.  This test verifies the
-committed artifact of the latest full TPU run; SPACEDUST_RUN_E2E=1
-recomputes it from scratch.
+ran on the accelerator through bench.py, asserting the 308/108 counts.
+This test verifies the committed artifact of that full run;
+SPACEDUST_RUN_E2E=1 recomputes it from scratch.
 """
 
 import os

@@ -67,3 +67,23 @@ def test_multihost_jax_distributed_branch(tmp_path, monkeypatch):
     assert (tmp_path / "dist_ok.rank1").read_text() == "1/2"
     from pathlib import Path as _P
     assert _P(out).read_text() == single.tsv
+
+
+def test_rank_results_keep_stored_columns(tmp_path):
+    """Rank 0 merges the ranks' records from their stored columns: a
+    seq id of 0.5115 formats as "0.511", which parses and formats again
+    as "0.510", so re-formatting parsed records changed the merged TSV
+    at scale."""
+    from spacedust_tpu.db.mmseqs_io import write_flatdb
+    from spacedust_tpu.parallel.multihost import load_results
+    from spacedust_tpu.search.records import AlnRecord
+
+    rec = AlnRecord(tkey=7, score=99, seq_id=0.5115346312522888,
+                    evalue=1.5e-12, qstart=0, qend=99, qlen=120, tstart=3,
+                    tend=101, tlen=140, backtrace="M" * 98 + "D" + "M",
+                    raw_score=200, qcov=0.8, tcov=0.7)
+    assert AlnRecord.parse(rec.line()).columns() != rec.columns()
+    write_flatdb(tmp_path / "result.0", [(0, rec.line() + "\n")])
+    write_flatdb(tmp_path / "result.1", [(1, "")])
+    results = load_results(tmp_path, 2)
+    assert results == {0: [["0"] + rec.columns()], 1: []}

@@ -117,67 +117,35 @@ def test_banded_traceback_gap(matrix):
     assert ops.count("D") == 0
 
 
-def test_pallas_interpret_matches_core():
-    """The Pallas kernel is the production TPU scoring path; pin it
-    bit-for-bit to sw_scan_core on CPU via interpret mode, covering
-    non-full qlens/tlens, the terminate (reverse) tracker, and the
-    first-maximum argmax (ADVICE r2)."""
-    import numpy as np
-    import jax.numpy as jnp
-    from spacedust_tpu.ops.sw_pallas import score_grid, sw_scan_pallas
-    from spacedust_tpu.ops.sw_tiled import sw_scan_core
-
-    rng = np.random.default_rng(7)
-    B, Lq, Lt = 16, 128, 256
-    prof = jnp.asarray(rng.integers(-8, 12, (B, 21, Lq)).astype(np.int32))
-    tseq = jnp.asarray(rng.integers(0, 20, (B, Lt)).astype(np.int32))
-    qlens = jnp.asarray(
-        rng.integers(3, Lq + 1, B).astype(np.int32))
-    tlens = jnp.asarray(rng.integers(3, Lt + 1, B).astype(np.int32))
-    term_off = jnp.full(B, -1, jnp.int32)
-
-    ref = sw_scan_core(prof, tseq, qlens, tlens, 11, 1, term_off,
-                       t_tile=64, all_outputs=True)
-    S = score_grid(prof, tseq)
-    got = sw_scan_pallas(S, qlens, tlens, term_off, 11, 1,
-                         all_outputs=True, bt=8, tt=32, interpret=True)
-    for i, (r, g) in enumerate(zip(ref, got)):
-        np.testing.assert_array_equal(np.asarray(r), np.asarray(g),
-                                      err_msg=f"output {i}")
-
-    # terminate semantics: run reverse-style with terminate = the known
-    # best score; the tracker must find the first column reaching it
-    score = np.asarray(ref[0])
-    term = jnp.asarray(score.astype(np.int32))
-    ref_t = sw_scan_core(prof, tseq, qlens, tlens, 11, 1, term,
-                         t_tile=64, with_terminate=True)
-    got_t = sw_scan_pallas(S, qlens, tlens, term, 11, 1,
-                           with_terminate=True, bt=8, tt=32, interpret=True)
-    for i, (r, g) in enumerate(zip(ref_t, got_t)):
-        np.testing.assert_array_equal(np.asarray(r), np.asarray(g),
-                                      err_msg=f"terminate output {i}")
-
-
-def test_pallas_int16_matches_core():
-    """The int16 DP variant (used when the per-query score upper bound
-    fits 2^15) must stay bit-identical to the int32 core."""
-    import numpy as np
-    import jax.numpy as jnp
-    from spacedust_tpu.ops.sw_pallas import score_grid, sw_scan_pallas
-    from spacedust_tpu.ops.sw_tiled import sw_scan_core
-
-    rng = np.random.default_rng(11)
-    B, Lq, Lt = 16, 128, 256
-    prof = jnp.asarray(rng.integers(-8, 12, (B, 21, Lq)).astype(np.int32))
-    tseq = jnp.asarray(rng.integers(0, 20, (B, Lt)).astype(np.int32))
-    qlens = jnp.asarray(rng.integers(3, Lq + 1, B).astype(np.int32))
-    tlens = jnp.asarray(rng.integers(3, Lt + 1, B).astype(np.int32))
-    term = jnp.full(B, -1, jnp.int32)
-    ref = sw_scan_core(prof, tseq, qlens, tlens, 11, 1, term,
-                       t_tile=64, all_outputs=True)
-    S = score_grid(prof, tseq)
-    got = sw_scan_pallas(S, qlens, tlens, term, 11, 1, all_outputs=True,
-                         bt=8, tt=32, interpret=True, use16=True)
-    for i, (r, g) in enumerate(zip(ref, got)):
-        np.testing.assert_array_equal(np.asarray(r), np.asarray(g),
-                                      err_msg=f"output {i}")
+def test_cigar_exactly_filling_its_slot_stays_in_it(matrix):
+    """A run-length CIGAR of single-op runs ("1M1D1M") is exactly twice
+    its op count, the size of its slot: the terminating NUL must not land
+    in the next byte (the next record's slot under OpenMP)."""
+    import ctypes
+    from spacedust_tpu.native import _ptr, get_lib
+    q = encode_aa("WW")
+    t = encode_aa("WAW")
+    out_offs = np.array([0, 3], np.int64)          # ops slot: exactly 3
+    ops = ctypes.create_string_buffer(3)
+    cigar = ctypes.create_string_buffer(b"#" * 8, 8)  # 6-byte slot + guard
+    out_len = np.zeros(1, np.int32)
+    out_ident = np.zeros(1, np.int32)
+    out_clen = np.zeros(1, np.int32)
+    i32 = lambda *v: np.array(v, np.int32)          # noqa: E731
+    mat = np.ascontiguousarray(matrix.sub_int, dtype=np.int8)
+    bad = get_lib().banded_align_batch(
+        _ptr(q, ctypes.c_uint8), _ptr(np.zeros(1, np.int64), ctypes.c_int64),
+        _ptr(t, ctypes.c_uint8), _ptr(np.zeros(1, np.int64), ctypes.c_int64),
+        _ptr(np.zeros(2, np.int8), ctypes.c_int8),
+        _ptr(mat, ctypes.c_int8), mat.shape[0], 1,
+        _ptr(i32(0), ctypes.c_int32), _ptr(i32(0), ctypes.c_int32),
+        _ptr(i32(0), ctypes.c_int32), _ptr(i32(1), ctypes.c_int32),
+        _ptr(i32(0), ctypes.c_int32), _ptr(i32(2), ctypes.c_int32),
+        _ptr(i32(11), ctypes.c_int32), 11, 1,
+        _ptr(out_offs, ctypes.c_int64), ops,
+        _ptr(out_len, ctypes.c_int32), _ptr(out_ident, ctypes.c_int32),
+        cigar, _ptr(out_clen, ctypes.c_int32))
+    assert bad == 0
+    assert ops.raw[:3] == b"MDM"
+    assert cigar.raw[:6] == b"1M1D1M" and out_clen[0] == 6
+    assert cigar.raw[6:] == b"##"

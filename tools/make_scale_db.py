@@ -1,25 +1,12 @@
-"""Synthesize a multi-genome benchmark workload (VERDICT r3 next #1).
+"""Write the seeded multi-genome benchmark workload as .faa files.
 
-The bundled regression (2 genomes, 5,898 genes) finishes in ~15 s and is
-overhead-dominated on the TPU engine; this tool derives N bacterial-scale
-genomes from the two bundled proteomes so both engines can be measured on
-a workload where compute, not fixed costs, dominates.
+A thin command line over spacedust_tpu/db/synth.py: two seeded ancestor
+proteomes (~4,300 and ~1,600 genes), each evolved into N descendant
+genomes (gene loss, operon-block moves and inversions, BLOSUM62-
+conditional substitutions).  The default is the 12-genome, ~31.9k-gene
+workload; the output is byte-identical for the same seed.
 
-Each synthetic genome is a deterministic (seeded) evolution of one
-source proteome:
-  * gene content: each gene kept with prob KEEP_P (varies gene sets);
-  * gene order: the genome is cut into operon-scale blocks (5-20 genes)
-    and a fraction of blocks are relocated/inverted — this is what makes
-    the downstream neighborhood clustering non-trivial;
-  * sequence: per-residue substitutions at rate SUB_RATE, sampled from
-    the BLOSUM62 conditional P(b|a) (biologically plausible drift).
-
-Output: Prodigal-style .faa files (the header form createsetdb.sh's awk
-pipeline parses: ">{acc}_{n} # start # end # strand # attrs") under the
-given directory, one file per genome — consumable by BOTH this package's
-createsetdb and the reference binary's.
-
-Usage: python tools/make_scale_db.py OUTDIR [n_per_source] [seed]
+Usage: python tools/make_scale_db.py OUTDIR [n_per_ancestor] [seed]
 """
 
 from __future__ import annotations
@@ -27,131 +14,16 @@ from __future__ import annotations
 import sys
 from pathlib import Path
 
-import numpy as np
-
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-
-SOURCES = [
-    ("/root/reference/examples/NC_000913.faa", "SYNEC"),
-    ("/root/reference/examples/NC_000915.faa", "SYNHP"),
-]
-KEEP_P = 0.9
-SUB_RATE = 0.12
-MOVE_FRAC = 0.25          # fraction of blocks relocated
-INVERT_P = 0.4            # probability a moved block is strand-inverted
-
-AA = "ACDEFGHIKLMNPQRSTVWY"
-
-
-def read_faa(path: str) -> list[tuple[str, str]]:
-    genes = []
-    name, parts = None, []
-    for line in open(path):
-        line = line.rstrip("\n")
-        if line.startswith(">"):
-            if name is not None:
-                genes.append((name, "".join(parts)))
-            name, parts = line[1:], []
-        else:
-            parts.append(line)
-    if name is not None:
-        genes.append((name, "".join(parts)))
-    return genes
-
-
-def blosum_conditional() -> np.ndarray:
-    """P(b | a) over the 20 canonical residues from the BLOSUM62 joint."""
-    from spacedust_tpu.stats.submat import load_substitution_matrix
-    m = load_substitution_matrix()
-    joint = m.prob[:20, :20].astype(np.float64)
-    cond = joint / joint.sum(axis=1, keepdims=True)
-    return cond
-
-
-def mutate(seq: str, rng: np.random.Generator, cond: np.ndarray,
-           aa_idx: dict[str, int]) -> str:
-    arr = list(seq)
-    n = len(arr)
-    k = rng.binomial(n, SUB_RATE)
-    if k == 0:
-        return seq
-    pos = rng.choice(n, size=k, replace=False)
-    for p in pos:
-        a = aa_idx.get(arr[p])
-        if a is None:          # '*', 'X', ... left untouched
-            continue
-        arr[p] = AA[rng.choice(20, p=cond[a])]
-    return "".join(arr)
-
-
-def evolve_genome(genes: list[tuple[str, str]], acc: str,
-                  rng: np.random.Generator, cond: np.ndarray) -> str:
-    aa_idx = {c: i for i, c in enumerate(AA)}
-    # strand per source gene from the Prodigal header field 4
-    kept = [(h, s) for h, s in genes if rng.random() < KEEP_P]
-    # operon-scale blocks
-    blocks = []
-    i = 0
-    while i < len(kept):
-        w = int(rng.integers(5, 21))
-        blocks.append(kept[i:i + w])
-        i += w
-    order = list(range(len(blocks)))
-    n_move = int(len(blocks) * MOVE_FRAC)
-    moved = rng.choice(len(blocks), size=n_move, replace=False)
-    inverted = set()
-    for b in moved:
-        order.remove(b)
-        order.insert(int(rng.integers(0, len(order) + 1)), b)
-        if rng.random() < INVERT_P:
-            inverted.add(b)
-    out = []
-    gi = 0
-    pos = 1
-    for b in order:
-        blk = blocks[b]
-        if b in inverted:
-            blk = blk[::-1]
-        for header, seq in blk:
-            gi += 1
-            fields = header.split(" # ")
-            strand = int(fields[3]) if len(fields) > 3 else 1
-            if b in inverted:
-                strand = -strand
-            length = 3 * len(seq)
-            start, end = pos, pos + length - 1
-            pos = end + 50
-            mseq = mutate(seq, rng, cond, aa_idx)
-            out.append(f">{acc}_{gi} # {start} # {end} # {strand} # "
-                       f"ID={gi};synthetic=1")
-            for j in range(0, len(mseq), 60):
-                out.append(mseq[j:j + 60])
-    return "\n".join(out) + "\n"
 
 
 def main() -> None:
+    from spacedust_tpu.db.synth import write_genomes
     outdir = Path(sys.argv[1] if len(sys.argv) > 1 else ".tmp/scale_genomes")
-    n_per_source = int(sys.argv[2]) if len(sys.argv) > 2 else 6
+    per_ancestor = int(sys.argv[2]) if len(sys.argv) > 2 else 6
     seed = int(sys.argv[3]) if len(sys.argv) > 3 else 42
-    outdir.mkdir(parents=True, exist_ok=True)
-    cond = blosum_conditional()
-    paths = []
-    for src, tag in SOURCES:
-        genes = read_faa(src)
-        for g in range(n_per_source):
-            # NB zlib.crc32, NOT hash(): str hashing is salted per process
-            # (PYTHONHASHSEED), which silently made every regeneration a
-            # DIFFERENT workload — the round-4 README-vs-driver benchmark
-            # discrepancy traced back to exactly this
-            import zlib
-            rng = np.random.default_rng(
-                [seed, zlib.crc32(tag.encode()) & 0xFFFF, g])
-            acc = f"{tag}{g:03d}.1"
-            text = evolve_genome(genes, acc, rng, cond)
-            p = outdir / f"{acc}.faa"
-            p.write_text(text)
-            paths.append(str(p))
-    n_genes = sum(open(p).read().count(">") for p in paths)
+    paths = write_genomes(outdir, seed, per_ancestor=per_ancestor)
+    n_genes = sum(Path(p).read_text().count(">") for p in paths)
     print(f"{len(paths)} genomes, {n_genes} genes -> {outdir}")
 
 
